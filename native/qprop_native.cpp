@@ -1,7 +1,7 @@
 // Native host-side runtime for quantumpropagators.
 //
-// The TPU-native framework keeps all O(N) propagation math on the
-// accelerator (XLA/Pallas); what remains on the host is the "runtime"
+// The framework keeps all O(N) propagation math on the
+// accelerator (XLA); what remains on the host is the "runtime"
 // work the reference delegates to Julia's SparseArrays/SuiteSparse
 // stack (reference src/generators.jl:473-524 kron assembly,
 // test/optomech.jl): assembling large sparse Hamiltonians, converting

@@ -1,13 +1,13 @@
-"""quantumpropagators — a TPU-native framework for quantum dynamics.
+"""quantumpropagators — a JAX framework for quantum dynamics.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 ``JuliaQuantumControl/QuantumPropagators.jl`` (reference mounted at
 ``/root/reference``): time propagation of quantum states under
 time-dependent Hamiltonians / Liouvillians via Chebyshev, Newton
 (restarted Krylov), and matrix-exponential methods, with a lazy
 generator/operator algebra, piecewise-constant control semantics, an
 interface-contract checking layer, and multi-chip state-vector sharding
-over TPU device meshes.
+over device meshes (one or several GPUs, or virtual CPU devices).
 """
 
 from .config import use_cpu_x64

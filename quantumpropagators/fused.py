@@ -25,399 +25,8 @@ import numpy as np
 
 from .models.generators import Generator, Operator, coeff_table
 from .ops.cheby import ChebyWorkspace, cheby_apply
-from .ops.fused_cheby import cheby_step_fused, flip_structure
 
 __all__ = ["cheby_propagate_fused", "make_fused_cheby_propagator"]
-
-
-def _dd_split_np(x64):
-    """Host f64 → (hi, lo) f32 planes."""
-    x64 = np.asarray(x64, dtype=np.float64)
-    hi = x64.astype(np.float32)
-    return jnp.asarray(hi), jnp.asarray((x64 - hi.astype(np.float64)).astype(np.float32))
-
-
-@partial(
-    jax.jit,
-    static_argnames=(
-        "plan", "delta", "e_min", "dt", "forward",
-        "observable_fn", "store_states", "interpret", "n_steps",
-        "f32_tail",
-    ),
-)
-def _fused_scan_pallas_dd(
-    plan,
-    dmb_h,
-    dmb_l,
-    state4,
-    c_h,
-    c_l,
-    delta,
-    e_min,
-    dt,
-    forward,
-    observable_fn,
-    store_states,
-    interpret,
-    n_steps,
-    diag_tab=None,
-    flip_tab=None,
-    diag_planes=None,
-    f32_tail=0,
-):
-    """Scan the df64 Pallas kernel (:mod:`.ops.fused_cheby_dd`) over
-    ``n_steps`` uniform intervals.  The state is four f32 planes
-    (re_hi, re_lo, im_hi, im_lo) for the whole propagation — reference
-    accuracy (~1e-13/step) without float64 hardware.
-
-    Time-dependent controls (the reference OC inner loop,
-    ``src/cheby_propagator.jl:243-299``): ``diag_tab``/``flip_tab`` are
-    optional ``(hi, lo)`` pairs of per-interval dd coefficient arrays
-    (shape ``(n_steps,)``).  With ``diag_tab``, ``diag_planes`` carries
-    the unscaled dd diagonal and ``dmb_h/dmb_l`` the dd split of −β;
-    the per-step fold ``c_d(t)·diag − β`` is one barriered df64 pass —
-    coefficients are scanned-over arrays, so control updates never
-    retrace."""
-    from .ops.fused_cheby_dd import cheby_step_fused_dd
-
-    def merge(state):
-        rh, rl, ih, il = state
-        if jax.config.jax_enable_x64:
-            return (rh.astype(jnp.float64) + rl) + 1j * (
-                ih.astype(jnp.float64) + il
-            )
-        return jax.lax.complex(rh + rl, ih + il)
-
-    xs = {}
-    if diag_tab is not None:
-        xs["cd"] = diag_tab
-    if flip_tab is not None:
-        xs["cf"] = flip_tab
-
-    def step(state, x):
-        if diag_tab is not None:
-            cdh, cdl = x["cd"]
-            if jax.config.jax_enable_x64:
-                d64 = (
-                    diag_planes[0].astype(jnp.float64) + diag_planes[1]
-                ) * (cdh.astype(jnp.float64) + cdl)
-                mb64 = dmb_h.astype(jnp.float64) + dmb_l  # −β planes
-                s64 = d64 + mb64
-                sh = s64.astype(jnp.float32)
-                step_dmb = (sh, (s64 - sh.astype(jnp.float64)).astype(
-                    jnp.float32))
-            else:
-                from .ops.df64 import DD, dd_add, dd_scale
-
-                d = dd_scale(
-                    DD(diag_planes[0], diag_planes[1]), DD(cdh, cdl)
-                )
-                s = dd_add(d, DD(dmb_h, dmb_l))
-                step_dmb = (s.hi, s.lo)
-        else:
-            step_dmb = (dmb_h, dmb_l)
-        fs = None
-        if flip_tab is not None:
-            fs = tuple(x["cf"])
-        state = cheby_step_fused_dd(
-            plan, step_dmb[0], step_dmb[1], state, c_h, c_l,
-            delta, e_min, dt,
-            forward=forward, interpret=interpret, flip_scale=fs,
-            f32_tail=f32_tail,
-        )
-        if observable_fn is not None:
-            out = observable_fn(merge(state))
-        elif store_states:
-            out = merge(state)
-        else:
-            out = None
-        return state, out
-
-    state4, outputs = jax.lax.scan(
-        step, state4, xs if xs else None, length=n_steps
-    )
-    return state4, outputs
-
-
-@partial(
-    jax.jit,
-    static_argnames=(
-        "plan", "delta", "e_min", "dt", "forward",
-        "observable_fn", "store_states", "interpret", "n_steps",
-        "f32_tail",
-    ),
-)
-def _fused_scan_pallas_dd_multi(
-    plan,
-    dmb_h,
-    dmb_l,
-    diag_planes,
-    diag_tab,
-    flip_tab,
-    state4,
-    c_h,
-    c_l,
-    delta,
-    e_min,
-    dt,
-    forward,
-    observable_fn,
-    store_states,
-    interpret,
-    n_steps,
-    f32_tail=0,
-):
-    """Multi-amplitude dd scan: the reference's ``Ĥ₀ + Σₗ aₗ(t)Ĥₗ``
-    (``src/generators.jl:44-61``) with ANY number of independently
-    driven diagonal terms and site-flip groups, at df64 accuracy.
-
-    ``diag_planes``: tuple of ``(hi, lo)`` dd pairs — the dynamic
-    diagonal terms; ``diag_tab``: ``(hi, lo)`` of ``(n_steps, n_dyn)``
-    per-interval coefficients (columns align with ``diag_planes``);
-    ``dmb_h/dmb_l``: the static part ``Σ_static diag − β``;
-    ``flip_tab``: ``(hi, lo)`` of ``(n_steps, n_bits)`` PER-BIT folded
-    flip coefficients ``G_j(t) = Σ_l c_l(t)·g_{l,j}`` (groups may
-    overlap).  All tables are traced arrays — control updates in an OC
-    loop never retrace."""
-    from .ops.fused_cheby_dd import cheby_step_fused_dd
-
-    def merge(state):
-        rh, rl, ih, il = state
-        if jax.config.jax_enable_x64:
-            return (rh.astype(jnp.float64) + rl) + 1j * (
-                ih.astype(jnp.float64) + il
-            )
-        return jax.lax.complex(rh + rl, ih + il)
-
-    xs = {"cf": flip_tab}
-    if diag_planes:
-        xs["cd"] = diag_tab
-
-    def step(state, x):
-        if diag_planes:
-            cdh, cdl = x["cd"]  # (n_dyn,) per-interval dd coefficients
-            if jax.config.jax_enable_x64:
-                s64 = dmb_h.astype(jnp.float64) + dmb_l
-                for i, (dh, dl) in enumerate(diag_planes):
-                    s64 = s64 + (dh.astype(jnp.float64) + dl) * (
-                        cdh[i].astype(jnp.float64) + cdl[i]
-                    )
-                sh = s64.astype(jnp.float32)
-                step_dmb = (
-                    sh, (s64 - sh.astype(jnp.float64)).astype(jnp.float32)
-                )
-            else:
-                from .ops.df64 import DD, dd_add, dd_scale
-
-                s = DD(dmb_h, dmb_l)
-                for i, (dh, dl) in enumerate(diag_planes):
-                    s = dd_add(
-                        s, dd_scale(DD(dh, dl), DD(cdh[i], cdl[i]))
-                    )
-                step_dmb = (s.hi, s.lo)
-        else:
-            step_dmb = (dmb_h, dmb_l)
-        state = cheby_step_fused_dd(
-            plan, step_dmb[0], step_dmb[1], state, c_h, c_l,
-            delta, e_min, dt,
-            forward=forward, interpret=interpret,
-            flip_scale=tuple(x["cf"]), f32_tail=f32_tail,
-        )
-        if observable_fn is not None:
-            out = observable_fn(merge(state))
-        elif store_states:
-            out = merge(state)
-        else:
-            out = None
-        return state, out
-
-    return jax.lax.scan(step, state4, xs, length=n_steps)
-
-
-def _merge_state4(state):
-    rh, rl, ih, il = state
-    if jax.config.jax_enable_x64:
-        return (rh.astype(jnp.float64) + rl) + 1j * (
-            ih.astype(jnp.float64) + il
-        )
-    return jax.lax.complex(rh + rl, ih + il)
-
-
-@partial(
-    jax.jit,
-    static_argnames=(
-        "offsets", "R", "b", "tile_rows", "delta", "e_min", "dt",
-        "forward", "observable_fn", "store_states", "interpret",
-        "n_steps", "n_logical",
-    ),
-)
-def _fused_scan_banded_dd(
-    planes_hi, planes_lo, state4, c_h, c_l, offsets, R, b, tile_rows,
-    delta, e_min, dt, forward, observable_fn, store_states, interpret,
-    n_steps, n_logical,
-):
-    """Scan the Pallas banded df64 SpMV kernel
-    (:mod:`.ops.bsr_dd_pallas`) over ``n_steps`` uniform intervals —
-    the reference-accuracy at-scale path for STATIC banded operators
-    without flip structure (BASELINE config 5 through the propagator
-    API, not bench-only plumbing; VERDICT r4 item 2)."""
-    from .ops.bsr_dd_pallas import BandedDD, banded_dd_apply
-    from .ops.df64 import CDD, DD
-    from .ops.df64_sparse import cheby_dd_recurrence
-
-    op = BandedDD(planes_hi, planes_lo, offsets, R, b, (R * b, R * b), 0)
-
-    def step(state, _):
-        rh, rl, ih, il = state
-        psi = CDD(DD(rh, rl), DD(ih, il))
-        out = cheby_dd_recurrence(
-            lambda v: CDD(
-                banded_dd_apply(op, v.re, tile_rows=tile_rows,
-                                interpret=interpret),
-                banded_dd_apply(op, v.im, tile_rows=tile_rows,
-                                interpret=interpret),
-            ),
-            psi, c_h, c_l, delta, e_min, dt, forward,
-        )
-        state = (out.re.hi, out.re.lo, out.im.hi, out.im.lo)
-        if observable_fn is not None:
-            o = observable_fn(_merge_state4(state)[:n_logical])
-        elif store_states:
-            o = _merge_state4(state)[:n_logical]
-        else:
-            o = None
-        return state, o
-
-    return jax.lax.scan(step, state4, None, length=n_steps)
-
-
-@partial(
-    jax.jit,
-    static_argnames=(
-        "shape_n", "delta", "e_min", "dt", "forward", "observable_fn",
-        "store_states", "n_steps", "n_logical",
-    ),
-)
-def _fused_scan_bsr_dd(
-    bh, bl, cols, shape_n, state4, c_h, c_l, delta, e_min, dt, forward,
-    observable_fn, store_states, n_steps, n_logical,
-):
-    """Scan the XLA blocked-ELL df64 chain over ``n_steps`` intervals —
-    the general-sparsity static dd fallback (optomech kron chains,
-    Liouvillians re-blocked to BSR)."""
-    from .ops.df64 import CDD, DD
-    from .ops.df64_sparse import BSRdd, _cdd_apply_real, \
-        cheby_dd_recurrence
-
-    op = BSRdd(bh, bl, cols, (shape_n, shape_n))
-
-    def step(state, _):
-        rh, rl, ih, il = state
-        psi = CDD(DD(rh, rl), DD(ih, il))
-        out = cheby_dd_recurrence(
-            lambda v: _cdd_apply_real(op, v), psi, c_h, c_l,
-            delta, e_min, dt, forward,
-        )
-        state = (out.re.hi, out.re.lo, out.im.hi, out.im.lo)
-        if observable_fn is not None:
-            o = observable_fn(_merge_state4(state)[:n_logical])
-        elif store_states:
-            o = _merge_state4(state)[:n_logical]
-        else:
-            o = None
-        return state, o
-
-    return jax.lax.scan(step, state4, None, length=n_steps)
-
-
-def _static_dd_path(generator, ops, psi0, tlist, workspace, backward,
-                    observable_fn, store_states):
-    """kernel='dd' for STATIC operators without diagonal-plus-flip
-    structure: fold the operator to a host scipy matrix, pick the
-    Pallas banded dd kernel when the sparsity is block-banded (the
-    measured-fastest df64 tier, ``docs/benchmarks.md``), else the XLA
-    blocked-ELL dd chain.  Real operator entries only (the
-    optomech/transmon/lattice family; complex Hamiltonians propagate
-    via the Liouvillian embedding)."""
-    import scipy.sparse as sp
-
-    from .ops.operators import to_scipy_sparse
-
-    if isinstance(generator, Operator):
-        mats = [to_scipy_sparse(o) for o in generator.ops]
-        c = np.asarray(generator.coeffs)
-        off = len(mats) - len(c)
-        A = sum(mats[:off], sp.csr_matrix(mats[0].shape))
-        for i, ci in enumerate(c):
-            A = A + complex(ci) * mats[off + i]
-    elif isinstance(generator, Generator):
-        raise ValueError(
-            "kernel='dd' with a time-dependent generator requires "
-            "diagonal-plus-site-flip structure (DiagonalOperator / "
-            "X-type SiteOperatorSum terms); for static generators any "
-            "real banded/BSR operator is supported"
-        )
-    else:
-        A = to_scipy_sparse(generator)
-    A = sp.csr_matrix(A)
-    if np.iscomplexobj(A.data) and np.abs(A.data.imag).max() > 0:
-        raise ValueError(
-            "kernel='dd' supports real operator entries; propagate "
-            "complex generators via the Liouvillian embedding"
-        )
-    A = sp.csr_matrix(A.real.astype(np.float64))
-
-    n_logical = int(psi0.shape[-1])
-    n_steps = len(tlist) - 1
-    dt = workspace.dt if not backward else -workspace.dt
-    c64 = np.asarray(workspace.coeffs, dtype=np.float64)
-    c_h, c_l = _dd_split_np(c64)
-    on_tpu = jax.devices()[0].platform == "tpu"
-    # interpret-mode EFT barriers make the production b=128 unroll
-    # infeasible on CPU — use small blocks off-chip (tests/CI)
-    block = 128 if on_tpu else 8
-
-    banded = None
-    try:
-        from .ops.bsr_dd_pallas import banded_dd_from_scipy
-
-        banded = banded_dd_from_scipy(A, block=block)
-    except ValueError:
-        banded = None
-
-    def pad_state4(n_pad):
-        psi_np = np.zeros(n_pad, dtype=np.complex128)
-        psi_np[:n_logical] = np.asarray(psi0)
-        rh, rl = _dd_split_np(psi_np.real)
-        ih, il = _dd_split_np(psi_np.imag)
-        return (rh, rl, ih, il)
-
-    if banded is not None:
-        tile_rows = min(8, banded.R)
-        while banded.R % tile_rows:
-            tile_rows -= 1
-        wb = max((abs(d) for d in banded.offsets), default=0)
-        if wb <= tile_rows:
-            state4, outputs = _fused_scan_banded_dd(
-                banded.planes_hi, banded.planes_lo,
-                pad_state4(banded.shape[0]), c_h, c_l,
-                banded.offsets, banded.R, banded.b, tile_rows,
-                float(workspace.delta), float(workspace.e_min),
-                float(dt), not backward, observable_fn, store_states,
-                not on_tpu, n_steps, n_logical,
-            )
-            return _merge_state4(state4)[:n_logical], outputs
-
-    from .ops.df64_sparse import bsr_dd_from_scipy
-
-    op = bsr_dd_from_scipy(A, block_size=(None if on_tpu else 8))
-    state4, outputs = _fused_scan_bsr_dd(
-        op.blocks_hi, op.blocks_lo, op.cols, int(op.shape[0]),
-        pad_state4(op.shape[0]), c_h, c_l,
-        float(workspace.delta), float(workspace.e_min), float(dt),
-        not backward, observable_fn, store_states, n_steps, n_logical,
-    )
-    return _merge_state4(state4)[:n_logical], outputs
 
 
 @partial(
@@ -460,161 +69,6 @@ def _fused_scan(
     return jax.lax.scan(step, psi0, coeffs_table)
 
 
-@partial(
-    jax.jit,
-    static_argnames=(
-        "plan", "diag_col", "flip_col", "delta", "e_min", "dt",
-        "forward", "observable_fn", "store_states", "interpret",
-    ),
-)
-def _fused_scan_pallas(
-    plan,
-    diag,
-    diag_col,
-    flip_col,
-    coeffs_table,
-    psi0,
-    cheby_coeffs,
-    delta,
-    e_min,
-    dt,
-    forward,
-    observable_fn,
-    store_states,
-    interpret=False,
-):
-    """Scan the single-pass Pallas kernel (:mod:`.ops.fused_cheby`) over
-    the coefficient table, with the state held as (re, im) f32 planes
-    for the whole propagation."""
-    rdtype = jnp.finfo(psi0.dtype).dtype
-    re = jnp.real(psi0).astype(rdtype)
-    im = jnp.imag(psi0).astype(rdtype)
-
-    def step(carry, table_row):
-        re, im = carry
-        d = diag if diag_col is None else table_row[diag_col] * diag
-        fsc = None if flip_col is None else table_row[flip_col]
-        re, im = cheby_step_fused(
-            plan, d, re, im, cheby_coeffs, delta, e_min, dt,
-            flip_scale=fsc, forward=forward, interpret=interpret,
-        )
-        if observable_fn is not None:
-            out = observable_fn(jax.lax.complex(re, im))
-        elif store_states:
-            out = jax.lax.complex(re, im)
-        else:
-            out = None
-        return (re, im), out
-
-    (re, im), outputs = jax.lax.scan(step, (re, im), coeffs_table)
-    return jax.lax.complex(re, im), outputs
-
-
-def _dd_multi_path(fsm, generator, ops, psi0, tlist, workspace, backward,
-                   observable_fn, store_states, f32_tail="auto"):
-    """Drive :func:`_fused_scan_pallas_dd_multi` from a detected
-    multi-term structure: host-side f64 folding of the per-interval
-    coefficient tables into (a) the static ``Σ diag − β`` dd planes,
-    (b) per-term dynamic diagonal tables, and (c) the per-bit flip
-    table ``G_j(t_k)``."""
-    from .models.generators import coeff_table_np
-    from .ops.fused_cheby import make_flip_plan
-    from .ops.fused_cheby_dd import dd_tile_rows
-
-    L, diag_terms, flip_terms = fsm
-    n_steps = len(tlist) - 1
-    n_ops = len(ops)
-    if isinstance(generator, Operator):
-        cst = np.asarray(generator.coeffs, dtype=np.float64)
-        offc = n_ops - len(cst)
-
-        def series(pos):
-            v = 1.0 if pos < offc else float(cst[pos - offc])
-            return np.full(n_steps, v, dtype=np.float64)
-
-        static_pos = set(range(n_ops))
-    else:
-        table64 = np.asarray(coeff_table_np(generator, tlist),
-                             dtype=np.float64)
-        if backward:
-            table64 = table64[::-1]
-        off = n_ops - table64.shape[1]
-
-        def series(pos):
-            if pos < off:
-                return np.ones(n_steps, dtype=np.float64)
-            return table64[:, pos - off]
-
-        static_pos = set(range(off))
-
-    beta = float(workspace.delta) / 2.0 + float(workspace.e_min)
-    dt = workspace.dt if not backward else -workspace.dt
-
-    # static diagonal fold (host f64): Σ_static c·diag − β
-    dmb64 = np.full(2 ** L, -beta, dtype=np.float64)
-    diag_planes = []
-    diag_cols = []
-    for pos, diag64 in diag_terms:
-        if pos in static_pos:
-            dmb64 = dmb64 + series(pos)[0] * diag64
-        else:
-            diag_planes.append(_dd_split_np(diag64))
-            diag_cols.append(series(pos))
-    dmb_h, dmb_l = _dd_split_np(dmb64)
-    diag_tab = None
-    if diag_planes:
-        diag_tab = _dd_split_np(np.stack(diag_cols, axis=1))
-
-    # per-bit flip table: G_j(t_k) = Σ_l c_l(t_k)·g_{l,j}
-    Gbits64 = np.zeros((n_steps, L), dtype=np.float64)
-    for pos, gs_bits in flip_terms:
-        Gbits64 = Gbits64 + np.outer(series(pos), gs_bits)
-    flip_tab = _dd_split_np(Gbits64)
-
-    plan = make_flip_plan(L, 1.0, tile_rows=dd_tile_rows(L))
-    c64 = np.asarray(workspace.coeffs, dtype=np.float64)
-    c_h, c_l = _dd_split_np(c64)
-    from .ops.fused_cheby_dd import f32_tail_orders
-
-    # per-bit tail (r4 item 5): same recurrence-sensitivity bound as
-    # the single-amplitude path
-    dd_tail = (
-        f32_tail_orders(c64) if f32_tail == "auto" else int(f32_tail)
-    )
-    psi_np = np.asarray(psi0)
-    rh, rl = _dd_split_np(psi_np.real)
-    ih, il = _dd_split_np(psi_np.imag)
-    on_tpu = jax.devices()[0].platform == "tpu"
-    state4, outputs = _fused_scan_pallas_dd_multi(
-        plan,
-        dmb_h,
-        dmb_l,
-        tuple(diag_planes),
-        diag_tab,
-        flip_tab,
-        (rh, rl, ih, il),
-        c_h,
-        c_l,
-        float(workspace.delta),
-        float(workspace.e_min),
-        float(dt),
-        not backward,
-        observable_fn,
-        store_states,
-        not on_tpu,
-        n_steps,
-        f32_tail=dd_tail,
-    )
-    rh, rl, ih, il = state4
-    if jax.config.jax_enable_x64:
-        psi_final = (rh.astype(jnp.float64) + rl) + 1j * (
-            ih.astype(jnp.float64) + il
-        )
-    else:
-        psi_final = jax.lax.complex(rh + rl, ih + il)
-    return psi_final, outputs
-
-
 def cheby_propagate_fused(
     psi0,
     generator,
@@ -626,8 +80,6 @@ def cheby_propagate_fused(
     store_states: bool = False,
     backward: bool = False,
     apply_fn=None,
-    kernel: str = "auto",
-    f32_tail="auto",
     **cheby_kwargs,
 ):
     """Propagate ``psi0`` over all of ``tlist`` in one compiled scan.
@@ -640,23 +92,6 @@ def cheby_propagate_fused(
     ``workspace`` defaults to building a :class:`ChebyPropagator`-style
     workspace via spectral-range estimation; pass one explicitly to
     skip that (e.g. with analytic bounds).
-
-    ``kernel`` selects the step implementation: ``"xla"`` (generic
-    operator algebra), ``"pallas"`` (single-pass fused TPU kernel;
-    requires diagonal-plus-site-flip structure, see
-    :func:`~.ops.fused_cheby.flip_structure`), or ``"auto"`` (pallas
-    when the structure matches and a TPU is present, else xla).
-
-    ``f32_tail`` (``kernel="dd"`` only) controls the mixed-precision
-    tail: the LAST ``m`` polynomial orders of each step run through the
-    cheap pure-f32 kernel instead of the double-float one.  ``"auto"``
-    (default) picks the largest ``m`` whose recurrence-sensitivity-
-    weighted error bound stays under a 3e-14 per-step budget — two
-    orders of magnitude inside the reference's 1e-10/1000-step
-    contract, and measured at ~1e-16/step on-chip — via
-    :func:`~.ops.fused_cheby_dd.f32_tail_orders`; ``0`` forces full
-    double-float at every order; an explicit integer ``m`` overrides
-    the bound (A/B benchmarking only — accuracy is then YOUR budget).
     """
     tlist = np.asarray(tlist, dtype=np.float64)
     if isinstance(generator, tuple):
@@ -689,145 +124,6 @@ def cheby_propagate_fused(
     coeffs_table = jnp.asarray(coeffs_table, dtype=rdtype)
     cheby_coeff_arr = jnp.asarray(workspace.coeffs, dtype=rdtype)
     dt = workspace.dt if not backward else -workspace.dt
-    if kernel not in ("auto", "xla", "pallas", "dd"):
-        raise ValueError(f"unknown kernel={kernel!r}")
-    if kernel == "dd":
-        # double-float Pallas path: reference accuracy (~1e-13/step) on
-        # f32-only TPUs.  Time-dependent amplitudes on the diagonal
-        # and/or flip terms ride per-interval dd coefficient tables —
-        # the OC inner loop (coeffs-only update, zero retracing) at
-        # reference accuracy.
-        fs = flip_structure(list(ops)) if len(ops) == 2 else None
-        if fs is None:
-            # multi-amplitude generators: Ĥ₀ + Σₗ aₗ(t)Ĥₗ with any
-            # number of diagonal terms / independently-driven flip
-            # groups (reference src/generators.jl:44-61) — per-bit
-            # folded coefficient tables through the dd kernel
-            from .ops.fused_cheby import flip_structure_multi
-
-            fsm = flip_structure_multi(list(ops))
-            if fsm is None:
-                # static operators without flip structure: banded
-                # Pallas dd kernel (fast tier) or XLA blocked-ELL
-                # chain — the propagator-API route to the r4 orphan
-                # kernel (VERDICT item 2)
-                return _static_dd_path(
-                    generator, ops, psi0, tlist, workspace, backward,
-                    observable_fn, store_states,
-                )
-            return _dd_multi_path(
-                fsm, generator, ops, psi0, tlist, workspace, backward,
-                observable_fn, store_states, f32_tail=f32_tail,
-            )
-        plan, diag, diag_pos, flip_pos = fs
-        n_cols = int(np.asarray(coeffs_table).shape[1])
-        off = len(ops) - n_cols
-        diag_col = diag_pos - off if diag_pos >= off else None
-        flip_col = flip_pos - off if flip_pos >= off else None
-        if isinstance(generator, Operator):
-            c_static = np.asarray(generator.coeffs, dtype=np.float64)
-            diag_col = flip_col = None
-        else:
-            c_static = np.ones(len(ops))
-        # full-precision host table (the jnp coeffs_table may be f32)
-        from .models.generators import coeff_table_np
-
-        table64 = np.asarray(coeff_table_np(generator, tlist),
-                             dtype=np.float64)
-        if backward:
-            table64 = table64[::-1]
-        diag64 = np.asarray(diag, dtype=np.float64) * c_static[diag_pos]
-        g_scale = float(c_static[flip_pos])
-        if g_scale != 1.0 and flip_col is None:
-            from .ops.fused_cheby import make_flip_plan
-
-            plan = make_flip_plan(
-                plan.L,
-                np.asarray(plan.gs, dtype=np.float64) * g_scale,
-                tile_rows=plan.tile_rows,
-            )
-        beta = float(workspace.delta) / 2.0 + float(workspace.e_min)
-        c64 = np.asarray(workspace.coeffs, dtype=np.float64)
-        c_h, c_l = _dd_split_np(c64)
-        from .ops.fused_cheby_dd import f32_tail_orders
-
-        dd_tail = (
-            f32_tail_orders(c64) if f32_tail == "auto" else int(f32_tail)
-        )
-        psi_np = np.asarray(psi0)
-        rh, rl = _dd_split_np(psi_np.real)
-        ih, il = _dd_split_np(psi_np.imag)
-        on_tpu = jax.devices()[0].platform == "tpu"
-        diag_tab = flip_tab = diag_planes = None
-        if diag_col is not None:
-            # dmb planes carry −β; the c_d(t)·diag fold happens in-scan
-            dmb_h, dmb_l = _dd_split_np(
-                np.full(diag64.shape, -beta, dtype=np.float64)
-            )
-            diag_planes = _dd_split_np(diag64)
-            diag_tab = _dd_split_np(table64[:, diag_col])
-        else:
-            dmb_h, dmb_l = _dd_split_np(diag64 - beta)
-        if flip_col is not None:
-            flip_tab = _dd_split_np(table64[:, flip_col])
-        state4, outputs = _fused_scan_pallas_dd(
-            plan,
-            dmb_h,
-            dmb_l,
-            (rh, rl, ih, il),
-            c_h,
-            c_l,
-            float(workspace.delta),
-            float(workspace.e_min),
-            float(dt),
-            not backward,
-            observable_fn,
-            store_states,
-            not on_tpu,
-            len(tlist) - 1,
-            diag_tab=diag_tab,
-            flip_tab=flip_tab,
-            diag_planes=diag_planes,
-            f32_tail=dd_tail,
-        )
-        rh, rl, ih, il = state4
-        if jax.config.jax_enable_x64:
-            psi_final = (rh.astype(jnp.float64) + rl) + 1j * (
-                ih.astype(jnp.float64) + il
-            )
-        else:
-            psi_final = jax.lax.complex(rh + rl, ih + il)
-        return psi_final, outputs
-    if kernel in ("auto", "pallas") and apply_fn is None:
-        fs = flip_structure(list(ops))
-        on_tpu = jax.devices()[0].platform == "tpu"
-        if fs is not None and (kernel == "pallas" or on_tpu):
-            plan, diag, diag_pos, flip_pos = fs
-            off = len(ops) - int(np.asarray(coeffs_table).shape[1])
-            diag_col = diag_pos - off if diag_pos >= off else None
-            flip_col = flip_pos - off if flip_pos >= off else None
-            return _fused_scan_pallas(
-                plan,
-                diag.astype(rdtype),
-                diag_col,
-                flip_col,
-                coeffs_table,
-                psi0,
-                cheby_coeff_arr,
-                float(workspace.delta),
-                float(workspace.e_min),
-                float(dt),
-                not backward,
-                observable_fn,
-                store_states,
-                interpret=not on_tpu,
-            )
-        if kernel == "pallas":
-            raise ValueError(
-                "kernel='pallas' requires diagonal-plus-site-flip "
-                "structure (one DiagonalOperator + one X-type "
-                "SiteOperatorSum term)"
-            )
     op_holder = Operator(list(ops), jnp.zeros((coeffs_table.shape[1],)))
     psi_final, outputs = _fused_scan(
         op_holder,

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import logging
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -247,7 +248,12 @@ def check_state_vector_interface(state, *, quiet: bool = False) -> bool:
         _err(quiet, f"state[i] must return a number: {exc}")
         ok = False
     try:
-        count = sum(1 for _ in state)
+        if isinstance(state, (np.ndarray, jax.Array)):
+            # an array iterates over its first axis; walking a device
+            # array element by element costs one transfer per chunk
+            count = state.shape[0]
+        else:
+            count = sum(1 for _ in state)
         if count != n:
             _err(quiet, "iterating a state must yield len(state) entries")
             ok = False

@@ -6,7 +6,7 @@ of a time grid ``tlist`` vs. values on the *midpoints* of its intervals,
 with boundary-preserving "un-averaging" that makes repeated round-trips
 bijective (``src/controls.jl:189-208``).
 
-These run on the host in float64 numpy: in the TPU-native design, controls
+These run on the host in float64 numpy: in this design, controls
 are evaluated *once* at initialization into an ``(nt-1, n_terms)``
 coefficient table that is fed to jitted propagation steps as a plain
 array, so nothing here ever traces.

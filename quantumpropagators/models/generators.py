@@ -6,7 +6,7 @@ A :class:`Generator` represents a time-dependent operator
 time yields an :class:`Operator` — a *lazy* sum ``Σₗ cₗ Ĥₗ`` holding the
 (immutable) terms and a coefficient vector (``src/generators.jl:111-125``).
 
-TPU-native design: :class:`Operator` is a pytree whose coefficient vector
+Design: :class:`Operator` is a pytree whose coefficient vector
 is an ordinary array leaf, so a jitted propagation step takes
 ``(ops_pytree, coeffs)`` and control updates flow as array data — zero
 retracing, zero reassembly (SURVEY §7.1).  For full propagations the

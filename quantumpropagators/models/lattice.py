@@ -1,7 +1,7 @@
-"""Structured lattice/spin-chain operators — the TPU fast path.
+"""Structured lattice/spin-chain operators — the fast path.
 
 The reference reaches large Hilbert spaces through generic sparse
-matrices (SuiteSparse CSC SpMV).  On TPU, a gather-based generic SpMV is
+matrices (SuiteSparse CSC SpMV).  A gather-based generic SpMV is
 memory-bound and irregular; but the Hamiltonians that *have* 2^20+
 dimensions are tensor-product structured (spin chains, lattices,
 kron-built cavity systems — cf. reference ``test/optomech.jl``), and
@@ -35,7 +35,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..config import default_complex_dtype
 from ..ops.operators import DiagonalOperator, _register_pytree
+
+# float32 contractions at full precision: GPUs otherwise may run
+# them in TF32 (about three decimal digits)
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 __all__ = [
     "SiteOperatorSum",
@@ -58,9 +63,8 @@ PAULI = {
 
 def _group_dims(L: int, group_bits: int = 10) -> tuple:
     """Split an ``L``-bit chain into contiguous groups of ≤ ``group_bits``
-    bits, as evenly as possible.  Group sizes stay ≥ ~7 bits (128 —
-    one MXU/VPU lane tile) whenever ``L`` allows, so no einsum axis is
-    pathologically small."""
+    bits, as evenly as possible, so no einsum axis is pathologically
+    small whenever ``L`` allows."""
     if L <= group_bits:
         return (L,)
     d = -(-L // group_bits)  # ceil
@@ -81,10 +85,9 @@ class SiteOperatorSum:
     ``apply`` MATRICIZES: contiguous groups of ~``group_bits`` sites are
     summed (in-graph, loop-invariant → hoisted by XLA out of scans)
     into dense ``(2^k, 2^k)`` group operators, and the state is
-    contracted group-by-group — ``d ≈ L/10`` MXU matmuls with all axes
-    ≥ 128 instead of ``L`` per-site passes with degenerate axis sizes
-    (which TPU tiling pads catastrophically).  Cost:
-    ``d · N · 2^group_bits`` FLOPs per matvec, MXU-bound.
+    contracted group-by-group — ``d ≈ L/10`` dense matmuls instead of
+    ``L`` per-site passes with degenerate axis sizes.  Cost:
+    ``d · N · 2^group_bits`` FLOPs per matvec.
     """
 
     site_mats: Any  # (L, 2, 2)
@@ -128,7 +131,9 @@ class SiteOperatorSum:
                 F = 2 ** nbits
                 post = N // (pre * F)
                 resh = psi.reshape(lead + (pre, F, post))
-                term = jnp.einsum("ab,...xbz->...xaz", A, resh)
+                term = jnp.einsum(
+                    "ab,...xbz->...xaz", A, resh, precision=_HIGHEST
+                )
                 term = term.reshape(lead + (N,))
                 out = term if out is None else out + term
             start += nbits
@@ -158,17 +163,17 @@ _register_pytree(SiteOperatorSum, ("site_mats",), ("L", "active", "group_bits"))
 class GroupedSiteSum:
     """Matricized sum of single-site terms: per contiguous site group
     ``g``, a PRECOMPUTED dense ``(F_g, F_g)`` operator
-    ``A_g = Σ_{i∈g} 𝟙⊗Mᵢ⊗𝟙``, applied as one MXU matmul over that
+    ``A_g = Σ_{i∈g} 𝟙⊗Mᵢ⊗𝟙``, applied as one dense matmul over that
     axis of the state.
 
     The production-speed form of :class:`SiteOperatorSum`: group
     operators are built once on the host (``SiteOperatorSum.grouped()``)
     so a scanned propagation pays ``d = len(dims)`` matmuls per matvec
-    and nothing else (building them in-graph costs ~30× on TPU — XLA
-    does not hoist the kron chains out of ``lax.scan``).  Real-valued
+    and nothing else (XLA does not always hoist in-graph kron chains out
+    of ``lax.scan``).  Real-valued
     group operators applied to complex states contract the real and
-    imaginary planes separately (two real MXU matmuls instead of one
-    emulated complex one).
+    imaginary planes separately (two real matmuls instead of one
+    complex one).
     """
 
     group_mats: tuple  # one (F_g, F_g) array per group
@@ -189,11 +194,18 @@ class GroupedSiteSum:
             post = N // (pre * F)
             resh = psi.reshape(lead + (pre, F, post))
             if A.dtype.kind == "f" and psi.dtype.kind == "c":
-                tr = jnp.einsum("ab,...xbz->...xaz", A, jnp.real(resh))
-                ti = jnp.einsum("ab,...xbz->...xaz", A, jnp.imag(resh))
+                tr = jnp.einsum(
+                    "ab,...xbz->...xaz", A, jnp.real(resh), precision=_HIGHEST
+                )
+                ti = jnp.einsum(
+                    "ab,...xbz->...xaz", A, jnp.imag(resh), precision=_HIGHEST
+                )
                 term = jax.lax.complex(tr, ti)
             else:
-                term = jnp.einsum("ab,...xbz->...xaz", A.astype(psi.dtype), resh)
+                term = jnp.einsum(
+                    "ab,...xbz->...xaz", A.astype(psi.dtype), resh,
+                    precision=_HIGHEST,
+                )
             term = term.reshape(lead + (N,))
             out = term if out is None else out + term
             pre *= F
@@ -309,9 +321,9 @@ def zz_bonds_diagonal(L: int, bonds, J=1.0, *, dtype=jnp.float32):
 def ising_diagonal_np(L: int, bonds, J=1.0, h=0.0) -> np.ndarray:
     """Host-side float64 diagonal ``Σ_b J_b σᶻᵢσᶻⱼ + Σᵢ hᵢ σᶻᵢ``.
 
-    The df64 kernels (:mod:`...ops.fused_cheby_dd`, :mod:`...ops.df64`)
-    need the diagonal at full f64 precision *before* the hi/lo split;
-    building it through jax on an f32-only backend would quantize it.
+    The df64 kernels (:mod:`...ops.df64`) need the diagonal at full f64
+    precision *before* the hi/lo split; building it through jax with
+    x64 off would quantize it.
     Site ``i`` is the MSB-first position, matching the jnp builders.
     """
     J = np.broadcast_to(np.asarray(J, dtype=np.float64), (len(bonds),))
@@ -362,7 +374,7 @@ def transverse_field_ising_2d(
     g: float = 1.0,
     h: float = 0.0,
     periodic: bool = False,
-    dtype=jnp.complex64,
+    dtype=None,
 ):
     """2D transverse-field Ising on an ``Lx × Ly`` lattice
     (``H = J Σ_<ij> σᶻᵢσᶻⱼ + h Σ σᶻᵢ + g Σ σˣᵢ``), site ``(x,y)`` at
@@ -374,6 +386,8 @@ def transverse_field_ising_2d(
     benchmark config (BASELINE.md) runs on the identical matricized /
     sharded machinery as the 1D chain.
     """
+    if dtype is None:
+        dtype = default_complex_dtype()
     L = Lx * Ly
     bonds = lattice2d_bonds(Lx, Ly, periodic=periodic)
     rdtype = jnp.finfo(dtype).dtype if dtype in (
@@ -397,7 +411,7 @@ def transverse_field_ising(
     g: float = 1.0,
     h: float = 0.0,
     periodic: bool = False,
-    dtype=jnp.complex64,
+    dtype=None,
 ):
     """Transverse-field Ising Hamiltonian
     ``H = J Σ σᶻᵢσᶻᵢ₊₁ + h Σ σᶻᵢ + g Σ σˣᵢ`` on ``L`` qubits.
@@ -408,7 +422,11 @@ def transverse_field_ising(
     (BASELINE.md "1D spin chain"; 2^20-dim config).  Combine e.g. as
     ``hamiltonian(H_diag, (H_x, drive))`` for a driven chain, or
     ``Operator([H_diag, H_x], [g])`` for the static Hamiltonian.
+    ``dtype`` defaults to :func:`~..config.default_complex_dtype`
+    (complex128 under ``jax_enable_x64``).
     """
+    if dtype is None:
+        dtype = default_complex_dtype()
     rdtype = jnp.finfo(dtype).dtype
     diag = zz_chain_diagonal(L, J, periodic=periodic, dtype=rdtype)
     if h != 0.0:

@@ -4,10 +4,10 @@ Builds the Krylov factorization ``H·dt ≈ Q† Hess Q`` from a starting
 state, the workhorse under Newton propagation and spectral-range
 estimation (reference ``src/arnoldi.jl``).
 
-TPU-native design: the reference's modified Gram-Schmidt (sequential
+Design: the reference's modified Gram-Schmidt (sequential
 dots, ``src/arnoldi.jl:84-87``) is replaced by *classical* Gram-Schmidt
 with reorthogonalization (CGS2) — each orthogonalization is two batched
-``(m+1, N) @ (N,)`` products that map onto the MXU and, under sharding,
+``(m+1, N) @ (N,)`` products that map onto dense matrix units and, under sharding,
 onto a single ``psum`` per pass, instead of ``j`` sequential reductions.
 CGS2 has the same numerical orthogonality guarantees as MGS.  The
 iteration count ``m`` is static; Krylov breakdown is handled by masking

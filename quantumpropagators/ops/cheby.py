@@ -8,7 +8,7 @@ recurrence ``v₂ = c (H v₁ − β v₁) + v₀`` with ``β = Δ/2 + E_min`` a
 ``c = ∓2i/Δ`` (sign selects forward/backward), and a final global phase
 ``exp(-i β dt)`` (``src/cheby.jl:150-213``).
 
-TPU-native realization: the recurrence is a ``lax.scan`` over a
+Realization: the recurrence is a ``lax.scan`` over a
 statically-sized coefficient array; the "workspace" (v₀, v₁, Φ) is the
 scan carry, so XLA double-buffers it in place — the functional analogue
 of the reference's pointer-rotating ``ChebyWrk``.  Coefficients are

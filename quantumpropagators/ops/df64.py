@@ -1,9 +1,8 @@
 """Double-float ("df64") arithmetic: ~1e-15 relative precision from f32
-pairs, for TPU hardware that has no native float64.
+pairs, for runs without float64 arrays (``jax_enable_x64`` off).
 
 The reference is complex128 end-to-end with kernel tests at 1e-10
-(``/root/reference/test/test_cheby.jl:8``); TPU v5e/v5p support only
-f32/bf16.  A complex64 Chebyshev propagation accumulates ~1e-5..1e-4
+(``test/test_cheby.jl:8``).  A complex64 Chebyshev propagation accumulates ~1e-5..1e-4
 error over 10^5 matvecs — far off the reference tolerance.  This module
 provides the classic error-free-transformation toolbox (Dekker/Knuth
 two-sum / split / two-product, no FMA required) vectorized over arrays,
@@ -124,7 +123,7 @@ def dd_add(x: DD, y: DD) -> DD:
     # renormalize with the FULL two_sum: the 3-op quick_two_sum variant
     # is miscompiled by XLA when one operand chain contains scalar
     # broadcasts (verified empirically; the 6-op branch-free two_sum is
-    # robust on both CPU and TPU backends)
+    # robust)
     hi, lo = two_sum(s, e)
     return DD(hi, lo)
 
@@ -196,9 +195,7 @@ def _flip_dd(x: DD, L: int, k: int) -> DD:
     """Exact bit-flip permutation of a df64 array: site ``k`` (0 = MSB).
 
     Expressed as an axis reversal over a 3D view — pure data movement
-    (exact, and contiguous-copy cheap on TPU when the trailing dim is
-    large; for the low ~7 bits the reversal is a lane shuffle, still
-    exact, slower — acceptable for the accuracy mode)."""
+    (exact, a contiguous copy when the trailing dim is large)."""
     pre, post = 2 ** k, 2 ** (L - 1 - k)
 
     def f(a):
@@ -213,9 +210,8 @@ def _flip_apply(psi: CDD, L: int, flip_coeffs, diag: DD, *, use_gather=None) -> 
     site; site 0 = MSB); zero coefficients are skipped statically.
 
     Bit flips are EXACT data movement; by default they are realized as
-    axis reversals (``jnp.flip``), which TPUs execute as contiguous
-    copies for all but the lowest bits.  Set ``use_gather=True`` to use
-    an index-gather instead (fine on CPU, pathological on TPU).
+    axis reversals (``jnp.flip``).  Set ``use_gather=True`` to use an
+    index-gather instead.
     """
     N = 2 ** L
     # diagonal part: elementwise df64 product (real diag × complex psi)
@@ -308,8 +304,8 @@ def cheby_apply_dd(
     ``H = diag + Σ_k flip_coeffs[k]·X_k`` (e.g. transverse-field Ising).
 
     ``coeffs`` are the float64 Chebyshev coefficients (host); ``psi`` a
-    :class:`CDD` state.  Expected accuracy ~1e-13 per step — the TPU
-    path to the reference's 1e-10 tolerances.
+    :class:`CDD` state.  Expected accuracy ~1e-13 per step — the
+    float32-array path to the reference's 1e-10 tolerances.
     """
     coeffs = np.asarray(coeffs, dtype=np.float64)
     c_hi = coeffs.astype(np.float32)

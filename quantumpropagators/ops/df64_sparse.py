@@ -1,8 +1,7 @@
 """df64 block-sparse apply: reference accuracy for UNSTRUCTURED
-operators on f32-only TPUs.
+operators without float64 arrays.
 
-The fused Pallas df64 kernel (:mod:`.fused_cheby_dd`) covers
-diagonal-plus-site-flip structure; everything else — optomech kron
+:mod:`.df64` covers diagonal-plus-site-flip structure; everything else — optomech kron
 chains (reference ``test/optomech.jl:1-45``), transmon ladders,
 Liouvillian superoperators — needs a double-float SpMV over a general
 sparsity layout.  This module provides it on the blocked-ELL (BSR)
@@ -18,8 +17,8 @@ layout of :class:`~.operators.BSROperator`:
   mistake).
 
 Real-valued operator entries (the optomech/transmon family; a complex
-state is two independent real applies).  Works on CPU (x64 tests) and
-TPU (barriered EFTs; ``validate_df64()`` checks the backend).
+state is two independent real applies).  Works on every backend
+(barriered EFTs; ``validate_df64()`` checks the backend).
 """
 
 from __future__ import annotations
@@ -237,10 +236,7 @@ def _phase_scale(phi: CDD, ph: complex) -> CDD:
     error-free transformations when the phase is an in-graph constant
     (measured 1.2e-7 relative — a latent bug masked for four rounds
     because every kernel test used ``e_min = −bound`` ⇒ β = 0 ⇒
-    phase ≡ 1).  On f32-only TPUs the dd path stands — the TPU
-    backend does not fold these (verified by the on-chip optomech
-    oracle, whose eigvalsh-based envelope has β ≠ 0: err 3.4e-13
-    over 50 steps, `docs/bench_r05/optomech.json`)."""
+    phase ≡ 1).  Without x64 the dd product stands."""
     if jax.config.jax_enable_x64:
         zr = phi.re.hi.astype(jnp.float64) + phi.re.lo
         zi = phi.im.hi.astype(jnp.float64) + phi.im.lo

@@ -3,7 +3,7 @@
 The analogue of reference ``src/expprop.jl``: form ``U = f(H·dt)`` by
 dense matrix functions and apply it.  Used as the cross-check oracle for
 all polynomial kernels and as a practical propagator for small systems
-(≲ a few hundred dimensions) where a dense matmul is one MXU tile.
+(≲ a few hundred dimensions) where a dense matmul is one small kernel.
 """
 
 from __future__ import annotations

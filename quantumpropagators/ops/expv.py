@@ -97,7 +97,7 @@ def expv_apply_dd(
     m_max: int = 120,
     norm_min: float = 1e-12,
 ):
-    """Krylov ``expv`` in double-float: the on-TPU reference-accuracy
+    """Krylov ``expv`` in double-float: the reference-accuracy
     path for BASELINE config 3 ("Arnoldi expm-Krylov") — a dd Arnoldi
     factorization (:func:`~.dd_linalg.arnoldi_dd`), host ``expm`` of
     the small Hessenberg in complex128, and a dd linear combination of

@@ -113,26 +113,6 @@ def _accumulate(Psi, q, P):
     return Psi + jnp.tensordot(P.astype(q.dtype), q, axes=(0, 0))
 
 
-def _host_c128(x_dev) -> np.ndarray:
-    """Device→host complex transfer via two REAL planes.  The TPU
-    backend in this environment cannot transfer complex buffers across
-    the jit boundary (real planes only); splitting re/im on device and
-    recombining on the host is equivalent on every backend."""
-    return np.asarray(jnp.real(x_dev), dtype=np.float64) + 1j * np.asarray(
-        jnp.imag(x_dev), dtype=np.float64
-    )
-
-
-def _dev_complex(x_np, dtype):
-    """Host complex → device via two real planes + in-graph
-    ``lax.complex`` (see :func:`_host_c128`)."""
-    x_np = np.asarray(x_np, dtype=np.complex128)
-    rdt = jnp.finfo(dtype).dtype
-    return jax.lax.complex(
-        jnp.asarray(x_np.real, dtype=rdt), jnp.asarray(x_np.imag, dtype=rdt)
-    )
-
-
 @jax.jit
 def _norm(x):
     return jnp.sqrt(jnp.real(jnp.vdot(x, x)))
@@ -205,11 +185,11 @@ def newton_apply(
         )
         info.matvecs += m
         m = m_eff
-        Hess = _host_c128(Hess_dev)
+        Hess = np.asarray(Hess_dev, dtype=np.complex128)
         if m == 1 and s == 0:
             # v is an eigenvector: f(H)Ψ = f(λ)Ψ
             lam = beta * Hess[0, 0]
-            result = _dev_complex(func(lam), q.dtype) * psi
+            result = jnp.asarray(func(lam), dtype=q.dtype) * psi
             info.restarts = s
             info.radius = radius
             return result
@@ -236,7 +216,7 @@ def newton_apply(
             R = (Hm @ R - z * R) / radius
             P += a[n_s + k] * R
 
-        delta_coords = _dev_complex(P[:m], q.dtype)
+        delta_coords = jnp.asarray(P[:m], dtype=q.dtype)
         if s == 0:
             Psi = jnp.tensordot(delta_coords.astype(q.dtype), q[:m], axes=(0, 0))
         else:
@@ -248,7 +228,7 @@ def newton_apply(
         if beta <= norm_min:
             break  # residual vanished: expansion is exact
         R = R / beta
-        v = jnp.tensordot(_dev_complex(R, q.dtype), q[: m + 1], axes=(0, 0))
+        v = jnp.tensordot(jnp.asarray(R, dtype=q.dtype), q[: m + 1], axes=(0, 0))
 
         psi_relerr = beta * abs(a[n_leja - 1]) / (1.0 + float(_norm(Psi)))
         if psi_relerr < relerr:
@@ -267,7 +247,7 @@ def newton_apply(
 
 
 # ---------------------------------------------------------------------------
-# double-float (df64) Newton: reference accuracy on f32-only TPUs
+# double-float (df64) Newton: reference accuracy without float64
 # ---------------------------------------------------------------------------
 #
 # Same restart algorithm as :func:`newton_apply`, with every O(N)
@@ -331,7 +311,7 @@ def newton_apply_dd(
     info: Optional[NewtonInfo] = None,
 ):
     """Evaluate ``f(H·dt)|psi⟩`` by restarted Arnoldi + Newton
-    interpolation **in double-float**: the on-TPU path to the
+    interpolation **in double-float**: the path without float64 arrays to the
     reference's 1e-10 contract (``test/test_newton.jl:20``) without
     float64 hardware.
 

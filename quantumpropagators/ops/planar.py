@@ -1,6 +1,6 @@
 """Planar (re, im) float32 fast path for the Chebyshev hot loop.
 
-A complex64 array on TPU is stored interleaved; every time the grouped
+A complex64 array is stored interleaved; every time the grouped
 matvec (:class:`...models.lattice.GroupedSiteSum`) contracts a *real*
 group operator against a complex state it must first materialize
 ``jnp.real(psi)`` / ``jnp.imag(psi)`` — a full strided deinterleave pass
@@ -10,7 +10,7 @@ over HBM per plane per group, and a re-interleave on the way out.  At
 This module keeps the state as a pair of contiguous f32 planes
 ``(re, im)`` through the *entire* recurrence instead.  The structure of
 the Chebyshev step makes this natural (reference ``src/cheby.jl:150-213``
-for the algorithm; this realization is TPU-specific):
+for the algorithm):
 
 - ``H`` is real in the benchmark family (diagonal + real site groups),
   so ``H v`` acts on each plane independently;
@@ -36,6 +36,10 @@ import jax.numpy as jnp
 import numpy as np
 
 from .operators import CSROperator, DIAOperator, DiagonalOperator, apply
+
+# float32 contractions at full precision: GPUs otherwise may run
+# them in TF32 (about three decimal digits)
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 __all__ = ["apply_planar", "cheby_apply_planar", "is_real_linear"]
 
@@ -82,7 +86,10 @@ def apply_planar(op, re, im):
 
     if isinstance(op, (jnp.ndarray, np.ndarray)) and op.dtype.kind == "f":
         A = jnp.asarray(op)
-        return re @ A.T, im @ A.T
+        return (
+            jnp.matmul(re, A.T, precision=_HIGHEST),
+            jnp.matmul(im, A.T, precision=_HIGHEST),
+        )
     if isinstance(op, DiagonalOperator) and _is_real(op.diag):
         return op.diag * re, op.diag * im
     if isinstance(op, GroupedSiteSum) and all(
@@ -114,7 +121,7 @@ def apply_planar(op, re, im):
 
 def _grouped_planar(op, plane):
     """One real plane through a :class:`GroupedSiteSum` (sum of per-group
-    MXU matmuls)."""
+    matmuls)."""
     N = int(np.prod(op.dims))
     lead = plane.shape[:-1]
     out = None
@@ -123,7 +130,10 @@ def _grouped_planar(op, plane):
         F = op.dims[g]
         post = N // (pre * F)
         resh = plane.reshape(lead + (pre, F, post))
-        term = jnp.einsum("ab,...xbz->...xaz", A.astype(plane.dtype), resh)
+        term = jnp.einsum(
+            "ab,...xbz->...xaz", A.astype(plane.dtype), resh,
+            precision=_HIGHEST,
+        )
         term = term.reshape(lead + (N,))
         out = term if out is None else out + term
         pre *= F

@@ -5,7 +5,7 @@ systems, Arnoldi/Ritz values otherwise, with the "enlarge" heuristic
 that deliberately over-estimates the spectral radius using the distance
 to the second-extremal Ritz value (``src/specrad.jl:88-112``).
 
-TPU-native: a single jitted Arnoldi run at ``m_max`` provides all leading
+Design: a single jitted Arnoldi run at ``m_max`` provides all leading
 sub-factorizations at once (Arnoldi is incremental: the leading ``m×m``
 block of the order-``m_max`` Hessenberg *is* the order-``m``
 factorization), so the reference's grow-by-one ``extend_arnoldi!`` loop

@@ -1,11 +1,11 @@
 """Multi-host runtime and checkpoint/resume.
 
-The reference is single-process (SURVEY §2.8); for pod-slice runs this
-module provides the TPU-native equivalents it lacks:
+The reference is single-process (SURVEY §2.8); for multi-host runs this
+module provides the equivalents it lacks:
 
 - :func:`initialize_multihost` — ``jax.distributed.initialize`` wrapper;
   after it, the same mesh/shard_map code spans all hosts (GSPMD covers
-  ICI + DCN).
+  links within and between hosts).
 - :func:`save_checkpoint` / :func:`load_checkpoint` — durable snapshots
   of a propagation: (state shards, interval index, parameter arrays),
   the minimal resumable-propagator state required by the reference's
@@ -38,7 +38,7 @@ def initialize_multihost(
 ) -> None:
     """Initialize the multi-host JAX runtime.
 
-    With no arguments, relies on the cluster environment (TPU pod
+    With no arguments, relies on the cluster environment (a cluster scheduler
     metadata / SLURM / GKE set the variables automatically).  Must run
     before any device computation on every host.
     """

@@ -1,10 +1,9 @@
 """Device mesh helpers.
 
-The distribution model (SURVEY §7.2): a 1D mesh over all chips of the
-slice, the state vector row-sharded over the mesh axis ``"x"``, and
+The distribution model (SURVEY §7.2): a 1D mesh over all devices, the state vector row-sharded over the mesh axis ``"x"``, and
 operators either replicated (small structural data) or sharded to match
-the state (diagonals, CSR row blocks).  GSPMD spans ICI and DCN
-transparently, so multi-host runs reuse the exact same code after
+the state (diagonals, CSR row blocks).  GSPMD spans the links within and
+between hosts transparently, so multi-host runs reuse the exact same code after
 ``jax.distributed.initialize``.
 """
 

@@ -4,7 +4,7 @@ The BSR analogue of :mod:`.sharded_csr` (SURVEY §7.4.2, BASELINE
 config 5 "BSR block-partitioned ... with halo overlap"): the state is
 sharded by BLOCK-rows, each device owns its slab of dense ``(b, b)``
 blocks in blocked-ELL layout, and applies it with one batched
-``dot_general`` (MXU) over contiguous block gathers — never a scalar
+``dot_general`` over contiguous block gathers — never a scalar
 gather.
 
 Communication strategies:
@@ -21,7 +21,7 @@ device kernel is static-shaped; slabs are padded to the max per-device
 block-degree so ``shard_map`` sees uniform blocks.  Reference
 parallelism contrast: the reference is single-process Julia
 (``src/cheby.jl:146-148`` generic ``mul!``); this module is the
-TPU-native distribution layer it does not have.
+distribution layer it does not have.
 """
 
 from __future__ import annotations
@@ -303,7 +303,7 @@ class DistributedBSR:
     """Operator-protocol wrapper around a partitioned BSR matrix.
 
     Implements the framework's ``apply``/``shape`` operator contract
-    (the TPU analogue of the reference's duck-typed ``mul!`` operand,
+    (the analogue of the reference's duck-typed ``mul!`` operand,
     ``src/cheby.jl:146-148``) with a distributed ``shard_map`` SpMV, so
     *any* kernel — Newton's restarted Arnoldi, ``specrange``, ``expv``
     — composes with BSR block partitioning unchanged: matvecs are block
@@ -358,7 +358,7 @@ _register_pytree(DistributedBSR, ("pbsr",), ("mesh",))
 # extra lo plane costs nothing at scale), and the shard-local block
 # apply is the compensated df64 kernel of ops/df64_sparse.py.  This is
 # the regime where the >=80% weak-scaling target is reachable: exchange
-# volume is O(wb·b) per matvec vs O(N_local) compute (SCALING.md §2b).
+# volume is O(wb·b) per matvec vs O(N_local) compute.
 
 
 @dataclass(frozen=True)
@@ -497,8 +497,8 @@ def make_sharded_bsr_cheby_step_dd(
     planes sharded ``P(x)`` and ``coeffs_h/coeffs_l`` the replicated
     dd-split Chebyshev coefficients.  Each polynomial order costs one
     banded halo exchange (``2·wb·b`` entries × 2 dd planes × 2 sides,
-    shard-size-independent) — the weak-scaling regime of SCALING.md
-    §2b, now at reference accuracy (VERDICT r3 item 1)."""
+    shard-size-independent) — the weak-scaling regime, at reference
+    accuracy."""
     from ..ops.df64 import CDD, DD
     from ..ops.df64_sparse import cheby_dd_recurrence
 

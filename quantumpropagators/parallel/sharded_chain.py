@@ -13,7 +13,8 @@ halo-exchange design in SURVEY §7.2):
   with exactly one *partner* block (device rank XOR a single bit):
   one ``ppermute`` pairwise exchange + an axpy.  For a spin chain, the
   per-matvec communication volume is therefore ``p`` block exchanges —
-  each riding a single ICI hop on a hypercube-consistent device order.
+  each one pairwise transfer between two devices (all-to-all NVLink
+  within a host, so any device order serves).
 
 The Chebyshev recurrence needs **no reductions** (SURVEY §5
 "long-context"), so a full sharded Chebyshev step is pure
@@ -53,7 +54,7 @@ class ShardedSiteSum:
     the top ``p`` (device-index) sites as per-site ``(p, 2, 2)``
     matrices (applied as pairwise ``ppermute`` block exchanges) and the
     remaining sites as a precomputed local :class:`GroupedSiteSum`
-    (applied as MXU matmuls on the local block).  Built host-side by
+    (applied as dense matmuls on the local block).  Built host-side by
     :func:`prepare_sharded_operator`."""
 
     device_mats: Any  # (p, 2, 2)

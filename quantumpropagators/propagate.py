@@ -179,7 +179,7 @@ def _propagate_fused(
     if str(method).lower() == "newton_leja":
         # device-driven fixed-Leja Newton in df64 (Hermitian
         # generators): the whole grid is one compiled scan — see
-        # ops/newton_leja.py (the TPU-native Newton redesign)
+        # ops/newton_leja.py (the device-driven Newton redesign)
         from .ops.dd_linalg import cdd_to_device_complex
         from .ops.newton_leja import newton_leja_propagate_dd
 

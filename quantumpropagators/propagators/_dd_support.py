@@ -1,9 +1,10 @@
 """Shared double-float plumbing for the Krylov-method propagators.
 
 Newton and expv carry their state and interval operators in compensated
-double-float (:mod:`..ops.dd_linalg`) when the device has no float64 —
-the on-TPU realization of the reference's complex128 semantics
-(``test/test_newton.jl:20`` holds every method to 1e-10)."""
+double-float (:mod:`..ops.dd_linalg`) when float64 is off (``precision=
+"dd"``, or ``"auto"`` without ``jax_enable_x64``) — the reference's
+complex128 semantics (``test/test_newton.jl:20`` holds every method to
+1e-10) without float64 arrays."""
 
 from __future__ import annotations
 
@@ -19,15 +20,12 @@ __all__ = [
 
 
 def resolve_dd_precision(precision: str) -> str:
-    """``'auto'`` → ``'dd'`` iff the backend lacks float64 (TPU);
+    """``'auto'`` → ``'dd'`` exactly when ``jax_enable_x64`` is off;
     explicit ``'dd'``/``'native'`` pass through."""
     if precision not in ("auto", "dd", "native"):
         raise ValueError(f"unknown precision={precision!r}")
     if precision == "auto":
-        on_f32_only = jax.devices()[0].platform == "tpu" or (
-            not jax.config.jax_enable_x64
-        )
-        return "dd" if on_f32_only else "native"
+        return "native" if jax.config.jax_enable_x64 else "dd"
     return precision
 
 
@@ -37,8 +35,8 @@ def build_dd_terms(op_proto, host_terms=None) -> tuple:
     updates (the coeffs-as-data invariant, SURVEY §7.1).
 
     ``host_terms`` (the ``dd_operator_terms`` propagator kwarg): host
-    f64 matrices (scipy/numpy), one per generator term in order.  On
-    f32-only backends the generator's device operator data has already
+    f64 matrices (scipy/numpy), one per generator term in order.  With
+    x64 off the generator's device operator data has already
     been rounded to f32 at construction — double-float built from it is
     capped at ~6e-8 operator accuracy.  Supplying the f64 sources here
     restores the full dd entry precision (~2⁻⁴⁸), which the 1e-10

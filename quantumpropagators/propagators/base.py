@@ -9,7 +9,7 @@ stateful stepping object with the contract
 - ``set_state(state)`` / ``set_t(t)`` mutate position
 - ``reinit_prop(propagator, state, **kw)`` re-arms for a new propagation
 
-TPU-native split: propagator objects are *host-side* drivers holding
+Host/device split: propagator objects are *host-side* drivers holding
 static configuration and interval bookkeeping; all O(N) numerical work
 happens in jitted functional kernels that consume
 ``(operator pytree, coefficient array, state)``.  Method selection is an

@@ -50,9 +50,8 @@ def _cheby_step(op, psi, coeffs, delta, e_min, dt, forward, check_normalization)
 def _cheby_step_dd(op4, state4, c_h, c_l, delta, e_min, dt, forward):
     """One step-wise dd Chebyshev interval over a
     :class:`~..ops.dd_linalg.TermsDDOp` — the host-loop (callbacks /
-    per-step storage) path at reference accuracy on f32-only devices.
-    Production long grids should prefer the fused scans
-    (:mod:`quantumpropagators.fused`)."""
+    per-step storage) path at reference accuracy without float64
+    arrays."""
     from ..ops.dd_linalg import apply_cdd_op
     from ..ops.df64 import CDD, DD
     from ..ops.df64_sparse import cheby_dd_recurrence
@@ -105,9 +104,8 @@ class ChebyPropagator(PWCPropagatorBase):
         super().__init__(
             state, generator, tlist, backward=backward, parameters=parameters
         )
-        # step-wise dd tier (opt-in: the fused scans are the production
-        # dd route; this covers the host-loop path — callbacks,
-        # per-step storage — at reference accuracy on f32-only devices)
+        # step-wise dd tier (opt-in): the host-loop path at reference
+        # accuracy without float64 arrays
         if precision not in ("native", "dd"):
             raise ValueError(f"unknown precision={precision!r}")
         self.precision = precision

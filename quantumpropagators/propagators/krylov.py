@@ -29,8 +29,8 @@ __all__ = ["KrylovPropagator"]
 class KrylovPropagator(PWCPropagatorBase):
     """``precision``: see
     :class:`~quantumpropagators.propagators.newton.NewtonPropagator` —
-    ``'auto'`` runs compensated double-float on f32-only devices, the
-    on-TPU route to BASELINE config 3's 1e-10 accuracy."""
+    ``'auto'`` runs compensated double-float when x64 is off, the
+    float64-free route to BASELINE config 3's 1e-10 accuracy."""
 
     def __init__(
         self,

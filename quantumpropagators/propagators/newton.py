@@ -27,9 +27,9 @@ __all__ = ["NewtonPropagator"]
 
 
 class NewtonPropagator(PWCPropagatorBase):
-    """``precision``: ``'auto'`` (double-float on f32-only devices,
-    native dtype elsewhere), ``'dd'`` (force compensated double-float —
-    the on-TPU path to the reference's 1e-10 contract,
+    """``precision``: ``'auto'`` (double-float when ``jax_enable_x64`` is
+    off, native dtype otherwise), ``'dd'`` (force compensated double-float —
+    the path without float64 arrays to the reference's 1e-10 contract,
     ``test/test_newton.jl:20``), or ``'native'`` (device dtype)."""
 
     def __init__(

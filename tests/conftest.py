@@ -1,10 +1,11 @@
-"""Test configuration: force the CPU backend with float64/complex128.
+"""Test configuration: the CPU backend with float64/complex128.
 
 The reference's numerical tolerances (1e-10 vs dense expm,
-test_cheby.jl:8) require complex128, which TPU hardware does not
-support; correctness tests therefore run on CPU with 8 virtual devices
-so that multi-chip sharding is exercised without hardware
-(SURVEY §4, "multi-chip bit-equality vs single-chip").
+test_cheby.jl:8) need complex128.  The tests run on the CPU with 8
+virtual devices, so that multi-device sharding is exercised without a
+GPU (SURVEY §4, "multi-chip bit-equality vs single-chip").  Tests
+marked ``gpu`` need a GPU and skip here; they run on the card with
+``python -m pytest tests/ -m gpu`` (see the README).
 """
 
 import jax

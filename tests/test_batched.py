@@ -1,6 +1,6 @@
 """Data-parallel (batched) propagation.
 
-The reference propagates one state at a time; on TPU a leading batch
+The reference propagates one state at a time; a leading batch
 axis over initial states (or control sets) is free parallelism
 (SURVEY §2.8 "Data parallel").  All functional kernels operate on the
 last axis, so batching is a shape change (or a ``vmap``)."""

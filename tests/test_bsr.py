@@ -1,7 +1,7 @@
 """BSR block-sparse operator: correctness, algebra, propagation.
 
-The BSR layout (dense MXU-sized blocks, blocked-ELL padding) is the
-TPU-native answer to the reference's generic CSC SpMV for unstructured
+The BSR layout (dense blocks, blocked-ELL padding) is this
+framework's answer to the reference's generic CSC SpMV for unstructured
 operators (reference ``src/cheby.jl:146-148``; optomech model
 ``test/optomech.jl:1-45``; BASELINE config "optomech cavity CSR" and
 the 2^24 "BSR block-partitioned" config).

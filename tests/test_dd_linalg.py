@@ -1,5 +1,5 @@
 """df64 Krylov toolkit (ops/dd_linalg.py): compensated reductions, dd
-operators, dd Arnoldi, and the dd Newton/expv kernels — the on-TPU
+operators, dd Arnoldi, and the dd Newton/expv kernels — the float64-free
 path to the reference's 1e-10 Krylov contract
 (``test/test_newton.jl:20``; VERDICT r4 item 1).
 

@@ -1,7 +1,7 @@
 """Double-float arithmetic and the df64 Chebyshev kernel.
 
 These run on CPU (f32 ops with x64 available for reference values); the
-same code path is the TPU accuracy mode.
+same code path is the accuracy mode without x64.
 """
 
 import jax.numpy as jnp
@@ -100,7 +100,7 @@ def test_df64_cheby_single_step():
 
 def test_df64_cheby_many_steps_vs_c64():
     """Error growth over 50 steps: df64 stays ~1e-11; c64 visibly
-    worse.  This is the accuracy case for the TPU path."""
+    worse.  This is the accuracy case for the dd path."""
     from quantumpropagators.models.lattice import (
         transverse_field_ising,
         z_chain_diagonal,

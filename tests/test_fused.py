@@ -132,12 +132,10 @@ def test_fused_storage_memory_guard():
     assert out.shape == (11,)
 
 
-# ---- kernel='dd' static operators (banded Pallas / BSR XLA tiers) ----
+# ---- static banded and general sparse operators ----
 #
-# VERDICT r4 item 2: `propagate` on a banded real BSR Hamiltonian must
-# hit the fast banded dd kernel without bench-only plumbing.  On CPU
-# the kernel runs in interpret mode with b=8 blocks (EFT host-callback
-# barriers make b=128 infeasible off-chip).
+# The fused scan takes any operator with the ``apply`` protocol; these
+# pin the BSR, folded-Operator and dense routes against ``expm``.
 
 
 @pytest.fixture
@@ -158,27 +156,27 @@ def banded_problem():
     return A, psi0, tlist
 
 
-def test_dd_static_banded_via_propagate(banded_problem):
-    """propagate(fused=True, kernel='dd') on a banded BSR operator
-    rides the Pallas banded dd tier at reference accuracy."""
+def _expm_final(A, psi0, tlist):
     import scipy.linalg
 
+    U = scipy.linalg.expm(-1j * (tlist[-1] - tlist[0]) * A.toarray())
+    return U @ np.asarray(psi0)
+
+
+def test_static_banded_via_propagate(banded_problem):
+    """propagate(fused=True) on a banded BSR operator matches expm."""
     from quantumpropagators.ops.operators import bsr_from_scipy
 
     A, psi0, tlist = banded_problem
     op = bsr_from_scipy(A, block_size=8)
-    got = qp.propagate(psi0, op, tlist, method="cheby", fused=True,
-                       kernel="dd")
-    U = scipy.linalg.expm(-1j * (tlist[-1] - tlist[0]) * A.toarray())
-    want = U @ np.asarray(psi0)
+    got = qp.propagate(psi0, op, tlist, method="cheby", fused=True)
+    assert got.dtype == jnp.complex128
+    want = _expm_final(A, psi0, tlist)
     assert np.abs(np.asarray(got) - want).max() < 1e-11
 
 
-def test_dd_static_operator_fold(banded_problem):
-    """A static Operator (ops + scalar coeffs) folds host-side and
-    propagates through the dd tier."""
-    import scipy.linalg
-
+def test_static_operator_fold(banded_problem):
+    """A static Operator (ops + scalar coeffs) propagates in the scan."""
     from quantumpropagators.models.generators import Operator
     from quantumpropagators.ops.operators import bsr_from_scipy
 
@@ -186,45 +184,34 @@ def test_dd_static_operator_fold(banded_problem):
     op1 = bsr_from_scipy(A, block_size=8)
     op2 = bsr_from_scipy(0.5 * A, block_size=8)
     gen = Operator([op1, op2], jnp.asarray([0.6, 0.8]))
-    Aeff = 0.6 * A + 0.8 * (0.5 * A)
-    psi_final, _ = cheby_propagate_fused(
-        psi0, gen, tlist, kernel="dd"
-    )
-    U = scipy.linalg.expm(
-        -1j * (tlist[-1] - tlist[0]) * Aeff.toarray()
-    )
-    want = U @ np.asarray(psi0)
+    psi_final, _ = cheby_propagate_fused(psi0, gen, tlist)
+    want = _expm_final(0.6 * A + 0.4 * A, psi0, tlist)
     assert np.abs(np.asarray(psi_final) - want).max() < 1e-11
 
 
-def test_dd_static_nonbanded_falls_back_to_bsr(banded_problem):
-    """Far off-diagonal coupling -> XLA blocked-ELL dd chain, same
-    accuracy."""
-    import scipy.linalg
-
+def test_static_nonbanded_dense(banded_problem):
+    """Far off-diagonal coupling as a dense complex128 operator."""
     A, psi0, tlist = banded_problem
     N = A.shape[0]
     A = A.tolil()
     A[0, N - 1] = A[N - 1, 0] = 0.4
     A = A.tocsr()
     psi_final, _ = cheby_propagate_fused(
-        psi0, jnp.asarray(A.toarray(), dtype=jnp.complex128), tlist,
-        kernel="dd",
+        psi0, jnp.asarray(A.toarray(), dtype=jnp.complex128), tlist
     )
-    U = scipy.linalg.expm(-1j * (tlist[-1] - tlist[0]) * A.toarray())
-    want = U @ np.asarray(psi0)
+    want = _expm_final(A, psi0, tlist)
     assert np.abs(np.asarray(psi_final) - want).max() < 1e-11
 
 
-def test_dd_static_observables_stream(banded_problem):
-    """observables stream through the dd scan on the UNPADDED state."""
+def test_static_observables_stream(banded_problem):
+    """Observables stream through the fused scan like the host loop."""
     A, psi0, tlist = banded_problem
     from quantumpropagators.ops.operators import bsr_from_scipy
 
     op = bsr_from_scipy(A, block_size=8)
     n_op = jnp.asarray(np.diag(np.arange(A.shape[0], dtype=float)))
     store = qp.propagate(
-        psi0, op, tlist, method="cheby", fused=True, kernel="dd",
+        psi0, op, tlist, method="cheby", fused=True,
         storage=True, observables=[n_op],
     )
     assert store.shape == (len(tlist),)

@@ -158,7 +158,7 @@ def test_dia_operator(rng):
 
 def test_dia_optomech_cheby(rng):
     """Optomech-style kron operator in DIA format through a Chebyshev
-    step (the TPU-friendly generic-sparse path)."""
+    step (the gather-free generic-sparse path)."""
     import scipy.sparse as sp
     from scipy.linalg import expm
     from quantumpropagators.ops.cheby import cheby_apply, cheby_coeffs

@@ -1,7 +1,7 @@
 """Planar (re, im) Chebyshev fast path vs the complex kernel and expm.
 
 Mirrors the kernel-vs-dense-oracle strategy of reference
-``test/test_cheby.jl`` for the planar TPU-throughput path.
+``test/test_cheby.jl`` for the planar throughput path.
 """
 
 import jax.numpy as jnp

@@ -292,7 +292,7 @@ def test_sharded_bsr_cheby_step_dd_reference_accuracy(mesh):
     oracle to 1e-12 — BASELINE config 5 (banded halo, multi-chip) at
     the 1e-10 accuracy contract the reference holds every config to
     (test/test_cheby.jl:8).  This is the banded regime where >=80%
-    weak-scaling is reachable (SCALING.md §2b), now at reference
+    weak-scaling is reachable, now at reference
     accuracy."""
     import scipy.linalg
 
@@ -420,3 +420,43 @@ def test_allgather_bsr_apply_dd_matches_f64(mesh):
     got = np.asarray(got_h, np.float64) + np.asarray(got_l, np.float64)
     want = A @ x64
     assert np.abs(got - want).max() / np.abs(want).max() < 1e-13
+
+
+@pytest.mark.parametrize("n_devices", [2, 4, 8])
+@pytest.mark.parametrize("b", [2, 4, 8])
+def test_sharded_bsr_step_vs_f64_oracle(b, n_devices):
+    """The complex128 banded sharded BSR Chebyshev step (config-5 shape)
+    matches the float64 host Chebyshev oracle to 1e-10, and its output
+    stays sharded over the mesh."""
+    import sys
+    from pathlib import Path
+
+    from quantumpropagators.ops.cheby import cheby_coeffs
+    from quantumpropagators.parallel.mesh import replicate
+    from quantumpropagators.parallel.sharded_bsr import (
+        make_sharded_bsr_cheby_step,
+    )
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from __graft_entry__ import _cheby_oracle_np
+
+    rng = np.random.default_rng(100 * b + n_devices)
+    R = 4 * n_devices
+    A = block_tridiag(R, b, rng, dtype=float)
+    A = (0.5 * (A + A.T)).tocsr()
+    pbsr = partition_bsr(A, n_devices, block_size=b)
+    assert pbsr.halo_blocks == 1
+    bound = float(abs(A).sum(axis=1).max())
+    delta, e_min, dt = 2 * bound, -bound, 0.05
+    coeffs = cheby_coeffs(delta, dt)
+    mesh = chain_mesh(n_devices)
+    step = make_sharded_bsr_cheby_step(mesh, pbsr, delta=delta, e_min=e_min,
+                                       dt=dt)
+    psi = rng.normal(size=R * b) + 1j * rng.normal(size=R * b)
+    psi /= np.linalg.norm(psi)
+    got = step(pbsr, shard_vector(mesh, jnp.asarray(psi)),
+               replicate(mesh, jnp.asarray(coeffs)))
+    A64 = A.toarray()
+    want = _cheby_oracle_np(lambda v: A64 @ v, psi, coeffs, delta, e_min, dt)
+    assert np.abs(np.asarray(got) - want).max() < 1e-10
+    assert len({s.device for s in got.addressable_shards}) == n_devices
